@@ -1,13 +1,13 @@
-// pwn_tpu native data loader.
+// pwn_vocoder native data loader.
 //
 // Reference-parity role (SURVEY.md §2b): the reference fed training through
 // tensorpack's PrefetchDataZMQ (libzmq, N forked Python workers) + TF's C++
 // FIFOQueue, decoding wavs with libsndfile/librosa.  This library is the
-// TPU-native equivalent of that native substrate: RIFF/PCM wav decoding, an
+// equivalent of that native substrate here: RIFF/PCM wav decoding, an
 // in-RAM int16 corpus cache, deterministic random-crop batch assembly, and a
 // background producer thread with a bounded queue so host batch prep fully
 // overlaps device steps.  Exposed to Python over a C ABI via ctypes
-// (pwn_tpu/data/native_loader.py) — no pybind11 dependency.
+// (pwn_vocoder/data/native_loader.py) — no pybind11 dependency.
 //
 // Determinism contract (matches the Python pipeline's resume semantics):
 // the batch for step k depends only on (seed, k), so checkpoint resume at

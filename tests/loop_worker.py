@@ -3,7 +3,7 @@
 
 Unlike tests/two_process_worker.py (one hand-rolled train step), this
 drives the REAL `training/loop.py::run_teacher_training` orchestration —
-per-host input partitioning, prefetch, orbax multi-host checkpointing,
+per-host input partitioning, prefetch, multi-host checkpointing,
 held-out eval, metrics logging — across two OS processes for hundreds of
 steps, so a mid-run SIGKILL + resume exercises the production
 failure-recovery path end to end.
@@ -24,7 +24,7 @@ def micro_config(global_batch: int, crop: int):
     1 block x 3 layers, 16 ch (2 flows x 3 for the student).  Shapes
     still flow through the full pipeline (mel conditioning, upsampler,
     MoL head / IAF flows)."""
-    from pwn_tpu.config import get_config, override
+    from pwn_vocoder.config import get_config, override
 
     cfg = get_config("tiny_teacher")
     for k, v in {
@@ -59,14 +59,14 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from pwn_tpu.parallel.mesh import ensure_distributed
+    from pwn_vocoder.parallel.mesh import ensure_distributed
 
     ensure_distributed()
     assert jax.process_count() == 2, jax.process_count()
 
     cfg = micro_config(global_batch, crop)
     if mode == "distill":
-        from pwn_tpu.training.loop import (
+        from pwn_vocoder.training.loop import (
             load_teacher_params,
             run_distillation,
         )
@@ -75,7 +75,7 @@ def main() -> int:
         res = run_distillation(cfg, t_params, workdir=workdir,
                                num_steps=num_steps)
     else:
-        from pwn_tpu.training.loop import run_teacher_training
+        from pwn_vocoder.training.loop import run_teacher_training
 
         res = run_teacher_training(cfg, workdir=workdir,
                                    num_steps=num_steps)

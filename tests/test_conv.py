@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from jax import lax
 
-from pwn_tpu.ops import conv
+from pwn_vocoder.ops import conv
 
 
 def _xla_causal_conv(x, kernel, dilation):

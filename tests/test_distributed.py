@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pwn_tpu.config import MeshConfig, get_config, override
-from pwn_tpu.data import SyntheticTones, make_train_iterator
-from pwn_tpu.models.teacher import init_teacher
-from pwn_tpu.parallel import make_mesh, shard_batch
-from pwn_tpu.training import make_teacher_train_step
-from pwn_tpu.training.common import create_train_state
+from pwn_vocoder.config import MeshConfig, get_config, override
+from pwn_vocoder.data import SyntheticTones, make_train_iterator
+from pwn_vocoder.models.teacher import init_teacher
+from pwn_vocoder.parallel import make_mesh, shard_batch
+from pwn_vocoder.training import make_teacher_train_step
+from pwn_vocoder.training.common import create_train_state
 
 CFG = override(get_config("tiny_teacher"), "train.crop_samples", 1024)
 
@@ -32,8 +32,8 @@ def test_dp_grads_match_single_device(rng):
     batch equal gradients of the unsharded global batch (bitwise-tolerant).
     Gradients are compared directly — comparing params after adam would
     amplify ~1e-7 reduction-order noise wherever v ~ 0."""
-    from pwn_tpu.parallel.mesh import batch_sharding, replicated
-    from pwn_tpu.training.teacher import prepare_batch
+    from pwn_vocoder.parallel.mesh import batch_sharding, replicated
+    from pwn_vocoder.training.teacher import prepare_batch
 
     model, variables = init_teacher(CFG, jax.random.PRNGKey(0))
     ds = SyntheticTones(16, 2000, CFG.dsp.sample_rate)
@@ -92,14 +92,14 @@ def test_batch_sharding_places_shards(rng):
 def test_measure_scaling_table(rng):
     """Scaling table runs over the CPU sim mesh and reports efficiency
     rows for each power-of-two device count."""
-    from pwn_tpu.benchmarks import measure_scaling
-    from pwn_tpu.config import get_config, override
+    from pwn_vocoder.benchmarks import measure_scaling
+    from pwn_vocoder.config import get_config, override
 
     cfg = get_config("tiny_teacher")
     for k, v in {"train.crop_samples": 1024,
                  "train.global_batch_size": 8}.items():
         cfg = override(cfg, k, v)
-    rows = measure_scaling(cfg, n_iters=2)
+    rows = measure_scaling(cfg, reps=2)
     assert [r["devices"] for r in rows] == [1, 2, 4, 8]
     assert rows[0]["efficiency"] == 1.0
     for r in rows:
@@ -108,30 +108,10 @@ def test_measure_scaling_table(rng):
         assert r["utt_per_s"] > 0 and np.isfinite(r["efficiency"])
 
 
-def test_analytic_dp_efficiency():
-    """Roofline DP-efficiency model: monotone-decreasing in device
-    count, DCN rows cost more than ICI, and the SURVEY §6 ≥85 % target
-    holds for the teacher at its measured step time."""
-    from pwn_tpu.benchmarks import analytic_dp_efficiency
-    from pwn_tpu.config import get_config
-
-    r = analytic_dp_efficiency(get_config("teacher_lj"), step_ms=17.3)
-    assert r["param_bytes"] > 1e6
-    effs = [row["predicted_efficiency"] for row in r["rows"]]
-    assert all(a >= b for a, b in zip(effs, effs[1:]))
-    assert all(e > 0.85 for e in effs)
-    ici = [row for row in r["rows"] if row["link"] == "ici"]
-    dcn = [row for row in r["rows"] if row["link"] == "dcn"]
-    assert ici and dcn
-    assert min(row["comm_ms"] for row in dcn) > max(
-        row["comm_ms"] for row in ici
-    )
-
-
 def test_teacher_factory_dp_step_matches_single_device(rng):
-    """make_teacher_train_step's shard_map DP branch (kernel-capable:
-    pallas_call stays per-device, grads pmean'd) ≡ the mesh=None jit on
-    the same global batch — loss and updated params."""
+    """make_teacher_train_step's shard_map DP branch (per-device grads,
+    pmean'd) ≡ the mesh=None jit on the same global batch — loss and
+    updated params."""
     model, variables = init_teacher(CFG, jax.random.PRNGKey(0))
     ds = SyntheticTones(16, 2000, CFG.dsp.sample_rate)
     wav = jnp.asarray(next(make_train_iterator(ds, CFG, 8, seed=3)))
@@ -166,9 +146,9 @@ def test_stochastic_dp_steps_descend_sharded(rng):
     descend (per-shard keys fold in the data-axis index, so exact
     single-device equality is not expected for these stochastic
     losses)."""
-    from pwn_tpu.models.student import init_student
-    from pwn_tpu.training import make_distill_train_step
-    from pwn_tpu.training.student_direct import (
+    from pwn_vocoder.models.student import init_student
+    from pwn_vocoder.training import make_distill_train_step
+    from pwn_vocoder.training.student_direct import (
         make_student_direct_train_step,
     )
 

@@ -8,18 +8,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pwn_tpu.config import get_config, override
-from pwn_tpu.data import SyntheticTones, make_train_iterator
-from pwn_tpu.models.student import init_student, sample_base_noise
-from pwn_tpu.models.teacher import init_teacher
-from pwn_tpu.ops import gaussian
-from pwn_tpu.training.common import create_train_state
-from pwn_tpu.training.distill import (
+from pwn_vocoder.config import get_config, override
+from pwn_vocoder.data import SyntheticTones, make_train_iterator
+from pwn_vocoder.models.student import init_student, sample_base_noise
+from pwn_vocoder.models.teacher import init_teacher
+from pwn_vocoder.ops import gaussian
+from pwn_vocoder.training.common import create_train_state
+from pwn_vocoder.training.distill import (
     distillation_losses,
     make_distill_train_step,
     resolve_objective,
 )
-from pwn_tpu.training.student_direct import make_student_direct_train_step
+from pwn_vocoder.training.student_direct import make_student_direct_train_step
 
 
 def _gaussian_cfg(**extra):
@@ -145,7 +145,7 @@ def test_sample_base_noise_families():
 
 def test_gaussian_teacher_ar_fast_matches_naive():
     rng = jax.random.PRNGKey(16)
-    from pwn_tpu.models.sampling import fast_sample, naive_sample
+    from pwn_vocoder.models.sampling import fast_sample, naive_sample
 
     cfg = _gaussian_cfg()
     model, variables = init_teacher(cfg, jax.random.PRNGKey(0))
@@ -158,32 +158,6 @@ def test_gaussian_teacher_ar_fast_matches_naive():
     naive = naive_sample(model, variables, key, mel)
     np.testing.assert_allclose(
         np.asarray(fast), np.asarray(naive), rtol=2e-4, atol=2e-4
-    )
-
-
-def test_pallas_ar_gaussian_head_matches_scan_on_shared_normals():
-    """The AR kernel's gaussian head (interpret mode) ≡ the conv-queue
-    scan consuming the same pre-drawn normal stream — the gaussian
-    analogue of tests/test_ar_pallas.py's shared-uniform equivalence."""
-    from pwn_tpu.models import sampling
-
-    cfg = _gaussian_cfg()
-    model, variables = init_teacher(cfg, jax.random.PRNGKey(0))
-    B, F = 2, 2
-    hop = cfg.dsp.hop_length
-    mel = jax.random.uniform(jax.random.PRNGKey(21), (B, F, cfg.dsp.n_mels))
-    key = jax.random.PRNGKey(22)
-    noise = sampling.draw_noise(cfg, key, F * hop, B)
-
-    scan_wav = sampling.fast_sample(
-        model, variables, key, mel, uniforms=noise
-    )
-    pallas_wav = sampling.fast_sample_pallas(
-        model, variables, key, mel, interpret=True
-    )
-    assert pallas_wav.shape == (B, F * hop)
-    np.testing.assert_allclose(
-        np.asarray(pallas_wav), np.asarray(scan_wav), rtol=1e-4, atol=1e-4
     )
 
 
@@ -221,7 +195,7 @@ def test_closed_form_kl_agrees_with_sampled_in_expectation():
     teacher, t_vars = init_teacher(cfg, jax.random.PRNGKey(0))
     student, s_vars = init_student(cfg, jax.random.PRNGKey(1))
     wav = _batch()
-    from pwn_tpu.training.teacher import prepare_batch
+    from pwn_vocoder.training.teacher import prepare_batch
 
     x_ref, mel = prepare_batch(wav, cfg)
 
@@ -256,7 +230,7 @@ def test_closed_form_kl_agrees_with_sampled_in_expectation():
 
 
 def test_gaussian_teacher_train_step_descends():
-    from pwn_tpu.training import make_teacher_train_step
+    from pwn_vocoder.training import make_teacher_train_step
 
     model, variables = init_teacher(CFG, jax.random.PRNGKey(0))
     state = create_train_state(variables["params"], CFG.train)

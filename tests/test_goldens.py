@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pwn_tpu.config import get_config
-from pwn_tpu.models.student import init_student
-from pwn_tpu.models.teacher import init_teacher
-from pwn_tpu.ops import mol
-from pwn_tpu.utils import dsp
+from pwn_vocoder.config import get_config
+from pwn_vocoder.models.student import init_student
+from pwn_vocoder.models.teacher import init_teacher
+from pwn_vocoder.ops import mol
+from pwn_vocoder.utils import dsp
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "tiny_v1.npz")
 
@@ -85,7 +85,7 @@ def gg():
 
 @pytest.fixture(scope="module")
 def cfg_gauss(cfg):
-    from pwn_tpu.config import override
+    from pwn_vocoder.config import override
 
     c = cfg
     for k, v in (("teacher.output", "gaussian"),
@@ -107,7 +107,7 @@ def test_golden_gaussian_teacher_allclose(g, gg, cfg_gauss):
     """Pins the Gaussian/ClariNet family semantics (head params +
     continuous NLL) the way tiny_v1 pins MoL — same clip/mel/init keys
     (tools/make_goldens.py)."""
-    from pwn_tpu.ops import gaussian
+    from pwn_vocoder.ops import gaussian
 
     wav = jnp.asarray(g["clip"])[None]
     x = jnp.clip(dsp.preemphasis(wav, cfg_gauss.dsp.preemphasis), -1, 1)
@@ -141,7 +141,7 @@ def test_golden_gaussian_student_waveform_allclose(g, gg, cfg_gauss):
 
 
 def test_eval_metrics_sane(g, cfg):
-    from pwn_tpu.evaluate import copy_synthesis_report
+    from pwn_vocoder.evaluate import copy_synthesis_report
 
     clip = g["clip"]
     rep_same = copy_synthesis_report(cfg, clip, clip)
@@ -158,7 +158,7 @@ def test_eval_metrics_sane(g, cfg):
 def test_voiced_metrics_isolate_silence_noise(cfg):
     """lsd_voiced ignores silent-frame noise; silence_noise_floor_db
     catches it (the r2 best-recipe failure mode)."""
-    from pwn_tpu.evaluate import voiced_metrics
+    from pwn_vocoder.evaluate import voiced_metrics
 
     sr = cfg.dsp.sample_rate
     t = np.arange(sr, dtype=np.float32) / sr

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pwn_tpu.config import get_config
-from pwn_tpu.models.student import init_student
-from pwn_tpu.models.teacher import init_teacher
+from pwn_vocoder.config import get_config
+from pwn_vocoder.models.student import init_student
+from pwn_vocoder.models.teacher import init_teacher
 
 CFG = get_config("tiny_teacher")
 HOP = CFG.dsp.hop_length
@@ -131,21 +131,23 @@ def test_student_generate_parallel(rng):
 def test_scan_stack_matches_unrolled_reference(rng):
     """The production lax.scan wide-GEMM stack must equal the unrolled
     per-layer reference compute (gated_layer_xla) on the same params."""
-    from pwn_tpu.models.modules import WaveNetStack, gated_layer_xla
-    from pwn_tpu.ops.conv import causal_conv1d
+    from pwn_vocoder.models.modules import (
+        ParamInit,
+        gated_layer_xla,
+        init_stack,
+        wavenet_stack,
+    )
+    from pwn_vocoder.ops.conv import causal_conv1d
 
     dilations = (1, 2, 4, 8, 16)
-    stack = WaveNetStack(
-        dilations=dilations, residual_channels=8, gate_channels=16,
-        skip_channels=8, out_dim=3,
-    )
+    p = init_stack(ParamInit(jax.random.PRNGKey(0)), len(dilations),
+                   residual_channels=8, gate_channels=16, skip_channels=8,
+                   cond_dim=5, out_dim=3)
     x = jnp.asarray(rng.standard_normal((2, 100, 1)).astype(np.float32))
     cond = jnp.asarray(rng.standard_normal((2, 100, 5)).astype(np.float32))
-    variables = stack.init(jax.random.PRNGKey(0), x, cond)
-    got = stack.apply(variables, x, cond)
+    got = wavenet_stack(p, x, cond, dilations, jnp.float32, use_scan=True)
 
     # manual unrolled reference with the same param tree
-    p = variables["params"]
     h = causal_conv1d(x, p["front"]["kernel"], 1, p["front"]["bias"])
     skip_total = jnp.zeros((2, 100, 8))
     for i, d in enumerate(dilations):

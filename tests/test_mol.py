@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.stats
 
-from pwn_tpu.ops import mol
+from pwn_vocoder.ops import mol
 
 
 def _mk_params(rng, shape, k=3):

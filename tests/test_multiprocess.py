@@ -19,6 +19,8 @@ import jax
 import numpy as np
 import pytest
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 WORKER = os.path.join(os.path.dirname(__file__), "two_process_worker.py")
 
 
@@ -38,7 +40,7 @@ def test_two_process_step_matches_single_process(tmp_path):
     for i in range(2):
         env = dict(os.environ)
         env.update(
-            PYTHONPATH="/root/repo",
+            PYTHONPATH=REPO,
             JAX_PLATFORMS="cpu",
             JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
             JAX_NUM_PROCESSES="2",
@@ -48,7 +50,7 @@ def test_two_process_step_matches_single_process(tmp_path):
         procs.append(
             subprocess.Popen(
                 [sys.executable, WORKER, out],
-                env=env, cwd="/root/repo",
+                env=env, cwd=REPO,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )
@@ -62,12 +64,12 @@ def test_two_process_step_matches_single_process(tmp_path):
 
     # single-process reference: same global batch on this process's
     # 8 virtual devices (conftest), same code path
-    from pwn_tpu.config import get_config, override
-    from pwn_tpu.data import SyntheticTones
-    from pwn_tpu.models.teacher import init_teacher
-    from pwn_tpu.parallel.mesh import make_mesh, shard_batch
-    from pwn_tpu.training.common import create_train_state
-    from pwn_tpu.training.teacher import make_teacher_train_step
+    from pwn_vocoder.config import get_config, override
+    from pwn_vocoder.data import SyntheticTones
+    from pwn_vocoder.models.teacher import init_teacher
+    from pwn_vocoder.parallel.mesh import make_mesh, shard_batch
+    from pwn_vocoder.training.common import create_train_state
+    from pwn_vocoder.training.teacher import make_teacher_train_step
 
     cfg = get_config("tiny_teacher")
     cfg = override(cfg, "train.crop_samples", 1024)
@@ -83,8 +85,8 @@ def test_two_process_step_matches_single_process(tmp_path):
 
     # replicated reference for the worker's cross-process-TP phase
     # (same init params + batch, loss/grad-norm before any step)
-    from pwn_tpu.training.common import global_norm
-    from pwn_tpu.training.teacher import prepare_batch
+    from pwn_vocoder.training.common import global_norm
+    from pwn_vocoder.training.teacher import prepare_batch
 
     @jax.jit
     def loss_gnorm(params, wav):

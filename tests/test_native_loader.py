@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
-from pwn_tpu.data.native_loader import (
+from pwn_vocoder.data.native_loader import (
     NativeWavCropLoader,
     build_native,
     native_available,

@@ -7,8 +7,14 @@ import numpy as np
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from pwn_tpu.ops.norm import InstanceNorm, WeightNormConv1d, instance_norm, weight_norm
-from pwn_tpu.utils import dsp
+from pwn_vocoder.ops.norm import (
+    init_instance_norm,
+    init_weight_norm_conv,
+    instance_norm,
+    weight_norm,
+    weight_norm_conv1d,
+)
+from pwn_vocoder.utils import dsp
 
 
 def test_mulaw_roundtrip(rng):
@@ -49,10 +55,11 @@ def test_instance_norm_statistics(rng):
 
 def test_instance_norm_module(rng):
     x = jnp.asarray(rng.standard_normal((2, 64, 4)).astype(np.float32))
-    m = InstanceNorm()
-    v = m.init(jax.random.PRNGKey(0), x)
-    y = m.apply(v, x)
+    p = init_instance_norm(x.shape[-1])
+    y = instance_norm(x, **p)
     assert y.shape == x.shape
+    np.testing.assert_allclose(np.asarray(y), np.asarray(instance_norm(x)),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_weight_norm_unit_norm(rng):
@@ -65,10 +72,10 @@ def test_weight_norm_unit_norm(rng):
 
 def test_weight_norm_conv_causality(rng):
     x = jnp.asarray(rng.standard_normal((1, 80, 4)).astype(np.float32))
-    m = WeightNormConv1d(features=6, kernel_size=2, dilation=4)
-    variables = m.init(jax.random.PRNGKey(0), x)
-    y1 = m.apply(variables, x)
-    y2 = m.apply(variables, x.at[:, 40:].add(1.0))
+    p = init_weight_norm_conv(jax.random.PRNGKey(0), 4, 6, kernel_size=2)
+    y1 = weight_norm_conv1d(p, x, dilation=4)
+    y2 = weight_norm_conv1d(p, x.at[:, 40:].add(1.0), dilation=4)
+    assert y1.shape == (1, 80, 6)
     np.testing.assert_array_equal(np.asarray(y1[:, :40]),
                                   np.asarray(y2[:, :40]))
 
@@ -81,9 +88,9 @@ def test_upsample_weight_norm_wiring():
     equal to a plain conv (g init = ||v||)."""
     import jax.numpy as jnp
 
-    from pwn_tpu.config import get_config, override
-    from pwn_tpu.models.teacher import init_teacher
-    from pwn_tpu.ops.norm import weight_norm as wn_fn
+    from pwn_vocoder.config import get_config, override
+    from pwn_vocoder.models.teacher import init_teacher
+    from pwn_vocoder.ops.norm import weight_norm as wn_fn
 
     cfg = get_config("tiny_teacher")
     _, v_off = init_teacher(cfg, jax.random.PRNGKey(0))

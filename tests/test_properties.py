@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from pwn_tpu.config import DSPConfig
-from pwn_tpu.ops import mol
-from pwn_tpu.utils import dsp
+from pwn_vocoder.config import DSPConfig
+from pwn_vocoder.ops import mol
+from pwn_vocoder.utils import dsp
 
 SETTINGS = dict(deadline=None, max_examples=15)
 
@@ -112,7 +112,7 @@ def test_kl_gaussian_properties(mu_q, ls_q, mu_p, ls_p):
     distillation objective) must be nonnegative for every parameter
     draw, zero iff q == p, and match the analytic cross-entropy
     decomposition KL = H(q, p) - H(q)."""
-    from pwn_tpu.ops import gaussian
+    from pwn_vocoder.ops import gaussian
 
     args = [jnp.float32(v) for v in (mu_q, ls_q, mu_p, ls_p)]
     kl = float(gaussian.kl_gaussian(*args))
@@ -130,7 +130,7 @@ def test_kl_gaussian_properties(mu_q, ls_q, mu_p, ls_p):
 @settings(**SETTINGS)
 @given(st.integers(0, 10**6))
 def test_gaussian_density_integrates_to_one(seed):
-    from pwn_tpu.ops import gaussian
+    from pwn_vocoder.ops import gaussian
 
     rng = np.random.default_rng(seed)
     m = jnp.float32(rng.uniform(-0.9, 0.9))

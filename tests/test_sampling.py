@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pwn_tpu.config import get_config
-from pwn_tpu.models import sampling
-from pwn_tpu.models.teacher import init_teacher
+from pwn_vocoder.config import get_config
+from pwn_vocoder.models import sampling
+from pwn_vocoder.models.teacher import init_teacher
 
 CFG = get_config("tiny_teacher")
 HOP = CFG.dsp.hop_length

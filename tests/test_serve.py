@@ -1,4 +1,4 @@
-"""Streaming vocoder HTTP server (`pwn_tpu/serve.py`).
+"""Streaming vocoder HTTP server (`pwn_vocoder/serve.py`).
 
 Drives the real ThreadingHTTPServer over a socket: health check,
 chunked PCM16 synthesis (including that streamed output equals the
@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
-from pwn_tpu.config import get_config, override
-from pwn_tpu.models.student import init_student
-from pwn_tpu.serve import VocoderService, make_server
+from pwn_vocoder.config import get_config
+from pwn_vocoder.models.student import init_student
+from pwn_vocoder.serve import VocoderService, make_server
 
-CFG = override(get_config("tiny_teacher"), "student.fused_layers", "off")
+CFG = get_config("tiny_teacher")
 
 
 @pytest.fixture(scope="module")
@@ -279,13 +279,13 @@ def test_batch_engine_rows_match_direct_stream():
     row for row (in-jit fold_in noise ≡ z_at's host block stream)."""
     from concurrent.futures import Future
 
-    from pwn_tpu.generate import (
+    from pwn_vocoder.generate import (
         _stream_geometry,
         _stream_plan,
         mel_from_wav,
         stream_student_chunks,
     )
-    from pwn_tpu.serve import _Job
+    from pwn_vocoder.serve import _Job
 
     _, variables = init_student(CFG, jax.random.PRNGKey(0))
     service = VocoderService(CFG, variables["params"], chunk_frames=8,
@@ -463,7 +463,7 @@ def test_draining_sheds_with_503(server):
 
 
 def test_drain_and_close_waits_for_pending():
-    from pwn_tpu.serve import drain_and_close, make_server
+    from pwn_vocoder.serve import drain_and_close, make_server
 
     _, variables = init_student(CFG, jax.random.PRNGKey(0))
     service = VocoderService(CFG, variables["params"], chunk_frames=8,
@@ -493,8 +493,8 @@ def test_batch_engine_retries_transient_failure(monkeypatch):
     stream: the engine retries the call once (ADVICE r4)."""
     from concurrent.futures import Future
 
-    import pwn_tpu.generate as gen_mod
-    from pwn_tpu.serve import _Job
+    import pwn_vocoder.generate as gen_mod
+    from pwn_vocoder.serve import _Job
 
     _, variables = init_student(CFG, jax.random.PRNGKey(0))
     service = VocoderService(CFG, variables["params"], chunk_frames=8,
@@ -549,7 +549,7 @@ def test_engine_valueerror_not_mistaken_for_short_utterance(monkeypatch):
     must surface as an ERROR, not trigger the short-utterance
     whole-call fallback (which would append a full synthesis after
     already-streamed chunks)."""
-    import pwn_tpu.generate as gen_mod
+    import pwn_vocoder.generate as gen_mod
 
     _, variables = init_student(CFG, jax.random.PRNGKey(0))
     service = VocoderService(CFG, variables["params"], chunk_frames=8,
@@ -589,7 +589,7 @@ def test_synthesize_from_mel_npy(server):
     wav = 0.25 * np.sin(
         2 * np.pi * 330 * np.arange(2 * sr) / sr
     ).astype(np.float32)
-    from pwn_tpu.generate import mel_from_wav
+    from pwn_vocoder.generate import mel_from_wav
 
     mel = np.asarray(mel_from_wav(CFG, wav)[0], np.float32)  # (F, n_mels)
     conn, r = _post(srv, "/synthesize?temperature=0.8", _mel_body(mel))
@@ -619,7 +619,7 @@ def test_bad_mel_rejected_400(server):
 
 
 def test_coerce_mel_shapes():
-    from pwn_tpu.generate import coerce_mel
+    from pwn_vocoder.generate import coerce_mel
 
     m = np.zeros((12, CFG.dsp.n_mels), np.float32)
     assert coerce_mel(CFG, m).shape == (1, 12, CFG.dsp.n_mels)

@@ -12,12 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pwn_tpu.config import MeshConfig, get_config, override
-from pwn_tpu.models.student import init_student
-from pwn_tpu.parallel import make_mesh
-from pwn_tpu.parallel.sp import make_sp_generate, shard_mel_time, validate_sp
+from pwn_vocoder.config import MeshConfig, get_config
+from pwn_vocoder.models.student import init_student
+from pwn_vocoder.parallel import make_mesh
+from pwn_vocoder.parallel.sp import (
+    make_sp_generate,
+    shard_mel_time,
+    validate_sp,
+)
 
-CFG = override(get_config("tiny_teacher"), "student.fused_layers", "off")
+CFG = get_config("tiny_teacher")
 # tiny hop=128, max student dilation 512, 8 shards -> F >= 32 frames
 
 
@@ -62,7 +66,7 @@ def test_sp_rejects_undersized_shards(rng):
 def test_sp_mega_matches_single_device(rng):
     """Overlap-recompute SP (shard_map, kernel-capable path) ==
     unsharded generate — VERDICT r1 item 1 equivalence gate."""
-    from pwn_tpu.parallel.sp import make_sp_generate_mega
+    from pwn_vocoder.parallel.sp import make_sp_generate_overlap
 
     cfg = get_config("tiny_teacher")  # fused auto -> xla on CPU; the
     # kernel == xla equivalence is covered by tests/test_flow_stack.py
@@ -72,7 +76,7 @@ def test_sp_mega_matches_single_device(rng):
     mel = jnp.asarray(
         rng.uniform(0, 1, (1, 320, cfg.dsp.n_mels)).astype(np.float32)
     )
-    gen = make_sp_generate_mega(model, cfg, mesh)
+    gen = make_sp_generate_overlap(model, cfg, mesh)
     wav = gen(variables, key, mel)
     assert len(wav.addressable_shards) == 8
     ref = jax.jit(
@@ -84,7 +88,10 @@ def test_sp_mega_matches_single_device(rng):
 
 
 def test_sp_mega_rejects_undersized_shards(rng):
-    from pwn_tpu.parallel.sp import make_sp_generate_mega, validate_sp_mega
+    from pwn_vocoder.parallel.sp import (
+        make_sp_generate_overlap,
+        validate_sp_overlap,
+    )
 
     cfg = get_config("tiny_teacher")
     model, variables = init_student(cfg, jax.random.PRNGKey(0))
@@ -92,18 +99,21 @@ def test_sp_mega_rejects_undersized_shards(rng):
     mel = jnp.asarray(
         rng.uniform(0, 1, (1, 64, cfg.dsp.n_mels)).astype(np.float32)
     )
-    gen = make_sp_generate_mega(model, cfg, mesh)
+    gen = make_sp_generate_overlap(model, cfg, mesh)
     with pytest.raises(ValueError, match="overlap"):
         gen(variables, jax.random.PRNGKey(0), mel)
     with pytest.raises(ValueError, match="divisible"):
-        validate_sp_mega(cfg, mesh, 321)
+        validate_sp_overlap(cfg, mesh, 321)
 
 
 def test_sp_mega_single_device_degenerates_to_plain_generate(rng):
-    """A 1-device mesh has no shards to overlap: make_sp_generate_mega
-    must return the plain generate (r2 TPU session 1 hit a spurious
+    """A 1-device mesh has no shards to overlap: make_sp_generate_overlap
+    must return the plain generate (an earlier version raised a spurious
     'window exceeds the utterance' refusal here)."""
-    from pwn_tpu.parallel.sp import make_sp_generate_mega, validate_sp_mega
+    from pwn_vocoder.parallel.sp import (
+        make_sp_generate_overlap,
+        validate_sp_overlap,
+    )
 
     from jax.sharding import Mesh
 
@@ -115,8 +125,8 @@ def test_sp_mega_single_device_degenerates_to_plain_generate(rng):
     mel = jnp.asarray(
         rng.uniform(0, 1, (1, 40, cfg.dsp.n_mels)).astype(np.float32)
     )
-    validate_sp_mega(cfg, mesh, 40)  # must not raise at n=1
-    gen = make_sp_generate_mega(model, cfg, mesh)
+    validate_sp_overlap(cfg, mesh, 40)  # must not raise at n=1
+    gen = make_sp_generate_overlap(model, cfg, mesh)
     wav = gen(variables, key, mel)
     ref = jax.jit(
         lambda v, k, m: model.apply(v, k, m, method="generate")

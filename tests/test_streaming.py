@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pwn_tpu.config import get_config, override
-from pwn_tpu.generate import stream_student_chunks
-from pwn_tpu.models.student import init_student
-from pwn_tpu.ops import mol
+from pwn_vocoder.config import get_config, override
+from pwn_vocoder.generate import stream_student_chunks
+from pwn_vocoder.models.student import init_student
+from pwn_vocoder.ops import mol
 
-CFG = override(get_config("tiny_teacher"), "student.fused_layers", "off")
+CFG = get_config("tiny_teacher")
 
 
 @pytest.mark.parametrize("F,chunk_frames,B", [(64, 16, 1), (60, 10, 2)])
@@ -50,7 +50,7 @@ def test_streaming_matches_whole_call_gaussian(rng):
     the window fn is family-agnostic (flows_from_z), and the chunked
     noise stream draws from the config's base via `sample_base_noise`
     (here N(0,1) instead of Logistic(0,1))."""
-    from pwn_tpu.models.student import sample_base_noise
+    from pwn_vocoder.models.student import sample_base_noise
 
     cfg = CFG
     for k, v in (("teacher.output", "gaussian"),
@@ -146,17 +146,16 @@ def test_streaming_chunk_noise_is_deterministic_and_bounded(rng):
 def test_streaming_window_fn_is_cached():
     """Successive generators with the same (config, chunk size) must
     reuse one jitted window fn — serving spawns a generator per request,
-    and re-jitting put warm time-to-first-chunk at 3.9 s (TPU session
-    15) before `generate._stream_window_fn` was lru-cached."""
-    from pwn_tpu.generate import _stream_window_fn
+    and re-jitting per request would put a compile in every
+    time-to-first-chunk."""
+    from pwn_vocoder.generate import _stream_window_fn
 
     a = _stream_window_fn(CFG, 16)
     b = _stream_window_fn(CFG, 16)
     assert a is b
     assert _stream_window_fn(CFG, 8) is not a  # distinct chunk size
     # distinct-but-equal config objects hit the same entry
-    cfg2 = override(get_config("tiny_teacher"),
-                    "student.fused_layers", "off")
+    cfg2 = get_config("tiny_teacher")
     assert cfg2 is not CFG
     assert _stream_window_fn(cfg2, 16) is a
 
@@ -184,8 +183,8 @@ def test_vocode_many_exact_and_composition_invariant(rng):
     item's own noise slice) regardless of batch composition, bucket
     padding, or zero batch rows — the upsampler runs at true length and
     the flows are causal, so padding cannot reach a real sample."""
-    from pwn_tpu.generate import _host_deemphasis, vocode_many
-    from pwn_tpu.models.student import sample_base_noise
+    from pwn_vocoder.generate import _host_deemphasis, vocode_many
+    from pwn_vocoder.models.student import sample_base_noise
 
     model, variables = init_student(CFG, jax.random.PRNGKey(0))
     # jitter EVERY param (biases included): fresh inits have zero
@@ -213,7 +212,7 @@ def test_vocode_many_exact_and_composition_invariant(rng):
     # exact tail-window splice reproduces the TRUE-length conditioning
     # (measured: zero-pad contamination reaches only ~8 samples past
     # the boundary on this config; the splice overwrites (H+2)*hop)
-    from pwn_tpu.generate import _vocode_fns
+    from pwn_vocoder.generate import _vocode_fns
 
     up, _, _, W = _vocode_fns(CFG)
     S = (W // 2) * hop

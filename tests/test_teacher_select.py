@@ -11,7 +11,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(__file__))
 from loop_worker import micro_config  # noqa: E402
 
-from pwn_tpu.config import override  # noqa: E402
+from pwn_vocoder.config import override  # noqa: E402
 
 
 def _cfg():
@@ -32,12 +32,12 @@ def _cfg():
 
 
 def test_ladder_probe_and_selection(tmp_path):
-    from pwn_tpu.training.loop import (
+    from pwn_vocoder.training.loop import (
         load_teacher_params,
         run_teacher_training,
         teacher_checkpoint_steps,
     )
-    from pwn_tpu.training.teacher_select import (
+    from pwn_vocoder.training.teacher_select import (
         probe_teacher_checkpoints,
         select_teacher_step,
     )

@@ -8,7 +8,7 @@ import os
 import numpy as np
 from scipy.io import wavfile
 
-from pwn_tpu.utils.tensorboard import (
+from pwn_vocoder.utils.tensorboard import (
     SummaryWriter,
     crc32c,
     masked_crc32c,
@@ -66,7 +66,7 @@ def test_audio_roundtrip(tmp_path):
 
 
 def test_metrics_logger_writes_tb(tmp_path):
-    from pwn_tpu.utils.metrics import MetricsLogger
+    from pwn_vocoder.utils.metrics import MetricsLogger
 
     d = str(tmp_path)
     log = MetricsLogger(os.path.join(d, "m.jsonl"), echo=False,

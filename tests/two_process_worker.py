@@ -26,7 +26,7 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from pwn_tpu.parallel.mesh import ensure_distributed
+    from pwn_vocoder.parallel.mesh import ensure_distributed
 
     ensure_distributed()  # must run before any backend-touching call
     assert jax.process_count() == 2, jax.process_count()
@@ -34,12 +34,12 @@ def main() -> int:
 
     import numpy as np
 
-    from pwn_tpu.config import get_config, override
-    from pwn_tpu.data import SyntheticTones
-    from pwn_tpu.models.teacher import init_teacher
-    from pwn_tpu.parallel.mesh import make_mesh, shard_batch
-    from pwn_tpu.training.common import create_train_state
-    from pwn_tpu.training.teacher import make_teacher_train_step
+    from pwn_vocoder.config import get_config, override
+    from pwn_vocoder.data import SyntheticTones
+    from pwn_vocoder.models.teacher import init_teacher
+    from pwn_vocoder.parallel.mesh import make_mesh, shard_batch
+    from pwn_vocoder.training.common import create_train_state
+    from pwn_vocoder.training.teacher import make_teacher_train_step
 
     cfg = get_config("tiny_teacher")
     cfg = override(cfg, "train.crop_samples", 1024)
@@ -74,9 +74,9 @@ def main() -> int:
     # only place the Megatron psum actually crosses a process boundary)
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    from pwn_tpu.parallel.tp import state_shardings, validate_tp
-    from pwn_tpu.training.common import global_norm
-    from pwn_tpu.training.teacher import prepare_batch
+    from pwn_vocoder.parallel.tp import state_shardings, validate_tp
+    from pwn_vocoder.training.common import global_norm
+    from pwn_vocoder.training.teacher import prepare_batch
 
     tp_mesh = Mesh(
         np.array(jax.devices()).reshape(1, 8), ("data", "model")

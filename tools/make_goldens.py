@@ -34,12 +34,12 @@ import numpy as np  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pwn_tpu.config import get_config, override  # noqa: E402
-from pwn_tpu.data import SyntheticTones  # noqa: E402
-from pwn_tpu.models.student import init_student  # noqa: E402
-from pwn_tpu.models.teacher import init_teacher  # noqa: E402
-from pwn_tpu.ops import mol  # noqa: E402
-from pwn_tpu.utils import dsp  # noqa: E402
+from pwn_vocoder.config import get_config, override  # noqa: E402
+from pwn_vocoder.data import SyntheticTones  # noqa: E402
+from pwn_vocoder.models.student import init_student  # noqa: E402
+from pwn_vocoder.models.teacher import init_teacher  # noqa: E402
+from pwn_vocoder.ops import mol  # noqa: E402
+from pwn_vocoder.utils import dsp  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "tests", "goldens",
                    "tiny_v1.npz")
@@ -85,7 +85,7 @@ def main() -> None:
     # Gaussian/ClariNet family fixture (tiny_gaussian_v1.npz): pins the
     # gaussian teacher head, gaussian_nll, and the Gaussian-base student
     # IAF transform on the SAME clip/mel/init keys as the MoL fixture.
-    from pwn_tpu.ops import gaussian  # noqa: E402
+    from pwn_vocoder.ops import gaussian  # noqa: E402
 
     cfg_g = cfg
     for k, v in (("teacher.output", "gaussian"),
